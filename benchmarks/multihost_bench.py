@@ -4,8 +4,8 @@
 Unlike the in-process virtual mesh (weak_scaling.py), this spawns separate
 OS processes that bring up ``jax.distributed`` against a localhost
 coordinator — the collectives genuinely cross process boundaries through
-gloo, the same code path a DCN pod takes (with TCP-loopback instead of real
-DCN latencies). Work per device is fixed; efficiency = t(1 proc)/t(N proc).
+gloo, the same code path a multi-host run takes (with TCP loopback instead of
+real network latencies). Work per device is fixed; efficiency = t(1 proc)/t(N proc).
 
 CAVEAT as with weak_scaling.py: this host has 4 physical cores shared by all
 processes, so the printed efficiency mixes algorithmic overhead with core
@@ -36,7 +36,7 @@ def _free_port() -> int:
 def run_group(n_procs: int, mb_per_dev: float) -> str:
     coordinator = f"localhost:{_free_port()}"
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["JAX_COMPILATION_CACHE_DIR"] = str(ROOT / ".jax_cache")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", str(ROOT / ".jax_cache"))
     # Pin each process to its own SINGLE vCPU (same per-process budget at
     # every N, up to N=4 on this 4-vCPU host) so the efficiency figure
     # measures cross-process coordination, not core oversubscription.

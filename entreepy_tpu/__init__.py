@@ -1,10 +1,10 @@
-"""entreepy_tpu — a TPU-native Huffman compression framework.
+"""entreepy_tpu — a Huffman compression framework on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Zig CLI
 tool ``typio/entreepy`` (see SURVEY.md): reads and writes the ``.et`` format
 bit-for-bit compatibly, but replaces the reference's serial tree/hash-map
-design with array-oriented, block-parallel compute that shards across TPU
-cores, chips, and hosts.
+design with array-oriented, block-parallel compute that runs on a GPU and
+shards across devices and hosts.
 
 Public API (mirrors the de-facto library contract fixed by the reference's
 tests, ``test.zig:7-33``: pure bytes-in/bytes-out functions):

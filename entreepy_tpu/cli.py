@@ -13,7 +13,7 @@ Improvements over the reference (documented divergences):
   unchecked — its own TODO at ``main.zig:199``); corrupt input exits 1 with
   a clear message instead of decoding garbage.
 * no segfault when generating default output names (``main.zig:154`` FIXME).
-* large inputs run block-parallel on the TPU automatically.
+* large inputs run block-parallel on the GPU automatically.
 """
 
 from __future__ import annotations
@@ -25,12 +25,13 @@ from pathlib import PurePath
 
 from . import api
 from .format import DegenerateInputError, FormatError
+from .utils.compile_cache import use_compile_cache
 from .utils.fmt import format_file_size
 from .utils.progress import ProgressBar
 
 # Byte-exact copy of the reference's help text (``main.zig:45-67``); the
-# TPU-specific additions live in a separate section appended below so the
-# reference surface stays byte-identical.
+# accelerator-specific additions live in a separate section appended below
+# so the reference surface stays byte-identical.
 REFERENCE_HELP_TEXT = """Entreepy - Text compression tool
 
 Usage: entreepy [options] [command] [file] [command options]
@@ -54,7 +55,7 @@ Examples:
 """
 
 HELP_TEXT = REFERENCE_HELP_TEXT + """
-TPU extensions:
+Accelerator extensions:
     --backend       force a codec backend: host | device | sharded
                     (default: auto — sharded when >1 device is visible)
 """
@@ -177,6 +178,7 @@ def main(argv: list[str] | None = None) -> int:
     if opts.mode == "none":
         sys.stdout.write(HELP_TEXT)
         return 0
+    use_compile_cache()
 
     try:
         data = open(opts.file_in, "rb").read()

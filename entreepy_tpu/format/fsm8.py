@@ -1,4 +1,4 @@
-"""Byte-granularity Huffman decode FSM — one MXU step per compressed byte.
+"""Byte-granularity Huffman decode FSM — one table step per compressed byte.
 
 Second-generation decode table (gen-1 was a nibble FSM, removed in 0.3): the
 state machine consumes a whole byte per transition, so a stream of N
@@ -10,17 +10,13 @@ decoder probes a hash map per candidate code length per symbol
 * input  = next 8 stream bits (MSB first)
 * output = (next_state, count, up to 8 emitted symbols)
 
-The TPU kernels only ever need ``next_state``: the transition
-
-    D = T_next @ onehot(byte)           # [S, lanes] <- [S, 256] x [256, lanes]
-
-is *independent of the running state* — the serial dependency flows only
-through a cheap per-lane row select — so the matmuls for many consecutive
-bytes batch/pipeline freely on the MXU. The kernels emit just the per-byte
-state sequence (1 output byte per compressed byte); symbols are then
-reconstructed on host with one vectorized ``syms[state, byte]`` table lookup
-(ops/decode8.py, runtime et_fsm8_expand). Every table value is <= 255, so
-bf16 one-hot matmuls are exact.
+A decode pass needs ``next_state`` per (state, byte): the GPU kernels gather
+it (``ops/kernels.py``), the XLA scans select it with the exact one-hot
+product ``onehot(byte) @ T^T`` (every table value is <= 255, so bf16 is
+exact). The state-sequence route emits one pre-transition state per
+compressed byte; symbols are then reconstructed on host with one vectorized
+``syms[state, byte]`` table lookup (ops/decode8.py, runtime
+et_fsm8_expand). The one-pass tables below emit the symbols on device.
 
 Corruption detection (unlike the nibble FSM's silent root-restart): a byte
 transition that walks an unreachable trie edge is marked invalid
@@ -300,7 +296,7 @@ def split_expand_tensors(fsm: ByteFsm) -> tuple[np.ndarray, int, int]:
     * cols ``2S:2S+9``    tail ``count + 16*invalid``, by (byte, p)
     * 9-col blocks j      tail symbol slot j, by (byte, p)
 
-    Device combine (ops/pallas_fsm8._expand_split_kernel): masked S-reduce
+    Device combine (ops/decode8._expand_scan_split): masked S-reduce
     the first two blocks by state, then masked 9-reduce the tail blocks by
     the just-computed p; ``count = (p>0) + tail_count``, ``invalid = either
     flag`` — exactly :func:`expand_tensors`'s packed outputs.
@@ -330,7 +326,7 @@ def fused_decode_tensors(fsm: ByteFsm) -> tuple[np.ndarray, int, int, int]:
     byte — no separate emit pass, no state re-read, and narrower than the
     split expand table alone (``2s + 9(mt+1)`` at s = fsm.width) because
     ``s`` here is the ACTUAL internal-node count padded to 8 instead of the
-    MXU-padded 128.
+    fsm.width of 128 or 256.
 
     Key identity: after the first code completes at bit p >= 1 the walk is
     at the root, so ``next_state(state, byte) = tail_end(byte, p)`` — a
@@ -348,7 +344,8 @@ def fused_decode_tensors(fsm: ByteFsm) -> tuple[np.ndarray, int, int, int]:
     * mt 9-col blocks     tail symbol slot j, by (byte, p)
     * last 9-col block    tail end state, by (byte, p) (row p=0 unused)
 
-    Device combine (ops/pallas_fsm8._fused_kernel): masked s-reduce the two
+    Device combine (ops/decode8._fused_scan_pass, and per (state, byte)
+    once in ops/kernels.fused_lookup): masked s-reduce the two
     S-blocks by the running state, 9-reduce the tail blocks by p, then
     ``state' = p > 0 ? tail_end : merged``; emitted rows are identical to
     :func:`expand_tensors`'s packed layout (row 0 = count + 16*invalid,
@@ -361,8 +358,8 @@ def fused_decode_tensors(fsm: ByteFsm) -> tuple[np.ndarray, int, int, int]:
     accepted outputs (see tests/test_decode8.py fused-vs-serial cases).
 
     Reference counterpart: the whole decode hot loop ``decode.zig:143-203``
-    (shift-register + hash probes, one symbol at a time) — here one MXU
-    contraction advances a full byte AND emits its symbols.
+    (shift-register + hash probes, one symbol at a time) — here one table
+    step advances a full byte AND emits its symbols.
 
     Returns (table, m, mt, s).
     """

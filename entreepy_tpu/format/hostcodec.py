@@ -1,7 +1,7 @@
 """Host (numpy) codec — exact, vectorized encode pack + serial decode.
 
 This is the correctness anchor: the encode pack is the same
-prefix-sum + scatter design the TPU kernels use (in exact uint64 arithmetic),
+prefix-sum + scatter design as the device pack (in exact uint64 arithmetic),
 and the decoder is a straightforward serial LUT automaton. Device paths are
 tested against these.
 

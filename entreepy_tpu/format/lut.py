@@ -2,7 +2,7 @@
 reference's ``AutoHashMap(code_int, [32]u8)`` decode map (``decode.zig:47-52``).
 
 The reference probes every code length per symbol with a hash lookup
-(``decode.zig:166-200``). On TPU we need O(1) fixed-shape gathers instead: a
+(``decode.zig:166-200``). Array code wants O(1) fixed-shape gathers instead: a
 table indexed directly by the next ``lookup_bits`` bits of the stream resolves
 any prefix code in one gather per level (one level suffices whenever
 ``max_code_len <= lookup_bits``; rare longer codes descend into child tables).

@@ -1,13 +1,13 @@
 """Single-device compress pipeline: device histogram + block scan-pack, host
 code construction + stitch.
 
-Pipeline (TPU-first redesign of ``encode.zig:25-337``):
+Pipeline (block-parallel redesign of ``encode.zig:25-337``):
 
 1. device: 256-bin histogram of the input bytes (compare-reduce, no scatter)
 2. host:   exact deterministic code construction (tiny — 256 symbols)
-3. device: block-parallel scan bit-pack (MXU one-hot code lookup + 64-bit
-           accumulator per lane, dense word emission — ops/bitpack.py)
-4. device: sort-based stream compaction (compact_payload_device) so only
+3. device: block-parallel bit-pack (64-bit accumulator per lane, dense word
+           emission — the GPU kernel or its XLA scan twin, ops/bitpack.py)
+4. device: sort-based stream compaction (compact_payload_plane) so only
            ~compressed bytes cross D2H
 5. host:   bit-granular stitch, header serialization
 
@@ -31,20 +31,15 @@ from .bitpack import (
     flat_cap,
     grouped_counts,
     histogram_device,
-    pack_blocks_jit,
+    pack_blocks,
     payload_cap_g,
 )
 
 # Scan length; lanes = input_size / block_bytes. The stitched .et stream is
 # byte-identical at ANY block size (bit-granular splices), so this is a pure
-# perf knob: the Pallas pack kernel's wall time scales with
-# steps x ceil(lanes / LANE_TILE) sequential rows, so SMALLER blocks win
-# once the lane count fills whole 1024-lane tiles. Interleaved on-chip sweep
-# (5.2 MB text, pack + doubling-shift compact e2e medians, LANE_TILE-padded
-# lanes): 4096 -> 1.13 ms, 2048 -> 0.92, 1024 -> 0.58, 512 -> 0.63 (same
-# sequential rows as 1024 but 2x the lanes' metadata). 1024 is the default;
-# the emitted word totals differed only by the blocks' boundary partials and
-# the stitched bytes are identical (golden fixtures + device==host tests).
+# perf knob: the pack's serial chain is one step per byte of a block, so
+# smaller blocks shorten it while adding lanes. Chosen on the first target
+# hardware; not yet measured on the H100 (ROADMAP, Speed).
 DEFAULT_BLOCK_BYTES = 1024
 # Streaming tile width for the device encode (blocks per tile): default
 # keeps 32 MB of input per tile at the default block size — blocks are
@@ -53,23 +48,13 @@ DEFAULT_BLOCK_BYTES = 1024
 TILE_BLOCKS = int(
     os.environ.get("ENTREEPY_TILE_BLOCKS", str((32 << 20) // DEFAULT_BLOCK_BYTES))
 )
+# Tiles the streaming encode has packed (callers check the tiled route ran).
+stats = {"encode_tiles": 0}
 
 
 def _bucket(n: int) -> int:
     """Round up to a power of two to bound jit recompiles."""
     return 1 << max(0, (n - 1).bit_length())
-
-
-def _pad_blocks(n: int) -> int:
-    """Lane padding for the Pallas pack path: round up to a LANE_TILE
-    multiple (>= 1 tile). The pow-2 bucket wastes up to ~2x of the grid in
-    dead lanes (e.g. 5079 -> 8192) and every dead lane is real kernel time;
-    tile multiples bound the waste at one tile. CPU meshes keep the pow-2
-    bucket (the scan twin's compile cost is per shape, and padded lanes are
-    real scan work there too)."""
-    from .pallas_pack import LANE_TILE
-
-    return max(LANE_TILE, -(-n // LANE_TILE) * LANE_TILE)
 
 
 def histogram_on_device(arr: np.ndarray) -> np.ndarray:
@@ -113,6 +98,7 @@ def encode_blocks_device(
         tile = TILE_BLOCKS * block_bytes
         flats, nws, bls = [], [], []
         for off in range(0, arr.size, tile):
+            stats["encode_tiles"] += 1
             f, nw, bl = encode_blocks_device(
                 arr[off : off + tile], table, block_bytes
             )
@@ -126,42 +112,24 @@ def encode_blocks_device(
         return np.concatenate(flats), np.concatenate(nws), np.concatenate(bls)
 
     blocks_np, valid_np = split_blocks(arr, block_bytes)
-    # Pad the block count (extra blocks are empty: valid=0) so jit compiles
-    # once per bucket, not once per file size: LANE_TILE multiples on the
-    # Pallas path (dead lanes are real kernel rows — see _pad_blocks),
-    # pow-2 buckets on CPU meshes.
-    from .decode8 import _use_pallas
-
-    use_pallas = _use_pallas()
-    n_bucket = (
-        _pad_blocks(blocks_np.shape[0]) if use_pallas
-        else _bucket(blocks_np.shape[0])
-    )
+    # Pad the block count to a power of two (extra blocks are empty:
+    # valid=0) so jit compiles once per bucket, not once per file size.
+    n_bucket = _bucket(blocks_np.shape[0])
     if n_bucket != blocks_np.shape[0]:
         pad = n_bucket - blocks_np.shape[0]
         blocks_np = np.concatenate([blocks_np, np.zeros((pad, block_bytes), np.uint8)])
         valid_np = np.concatenate([valid_np, np.zeros(pad, np.int32)])
 
     codetbl = jnp.asarray(code_table_cols(table.codes, table.lengths), dtype=jnp.bfloat16)
-    pack = pack_blocks_jit
-
-    if use_pallas:
-        try:  # fused kernel needs tile-compatible shapes
-            from .pallas_pack import _tiles, pack_blocks_pallas
-
-            _tiles(n_bucket, block_bytes)
-            pack = pack_blocks_pallas
-        except ValueError:
-            pass
-    words, emitted, acc, nbits = pack(
+    words, emitted, acc, nbits = pack_blocks(
         jnp.asarray(blocks_np), jnp.asarray(valid_np), codetbl
     )
     # Compact ON DEVICE: only the per-block counts (4 B/block) and the
     # ~compressed-size payload cross D2H, not the 4 B-per-input-byte dense
     # slots. Default = single-stage plane compaction (per-subgroup sort,
-    # host slices live prefixes): ~10x cheaper on device than the flat
-    # path's global stage-2 sort for a ~1.1-1.4x fetch. ENTREEPY_ENC_COMPACT
-    # =flat keeps the exactly-compressed-size fetch (the multihost default).
+    # host slices live prefixes): no global stage-2 sort, for a ~1.1-1.7x
+    # fetch. ENTREEPY_ENC_COMPACT=flat keeps the exactly-compressed-size
+    # fetch (the multihost default).
     if os.environ.get("ENTREEPY_ENC_COMPACT", "plane") == "plane":
         from .bitpack import (
             assemble_plane_payload, compact_payload_plane, grouped_counts_plane,

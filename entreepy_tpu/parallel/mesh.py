@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
 A Huffman codec has one meaningful parallel axis: independent input blocks
-(data parallelism). The mesh is therefore 1-D; multi-host pods simply extend
-the same axis across hosts (ICI within a slice, DCN across hosts — XLA picks
-the transport from device placement).
+(data parallelism). The mesh is therefore 1-D over the devices in order;
+multi-host runs simply extend the same axis across hosts (XLA picks the
+transport from device placement: NVLink between the GPUs of a host, the
+network across hosts).
 """
 
 from __future__ import annotations

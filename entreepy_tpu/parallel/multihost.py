@@ -1,10 +1,10 @@
-"""Multi-host (pod / DCN) execution.
+"""Multi-host execution.
 
 The reference has no distributed backend at all (SURVEY.md §2: no NCCL/MPI/
 sockets; single process). Here multi-host runs the *same* shard_map programs
 as single-host (dist.py) over a mesh whose 1-D block axis spans every
-process's devices: collectives ride ICI within a slice and DCN across hosts,
-chosen by XLA from device placement.
+process's devices: XLA routes the collectives over the devices'
+interconnect within a host and the network across hosts.
 
 Communication per file (measured contract, tested in test_multihost.py):
 
@@ -25,10 +25,8 @@ Usage (one process per host, standard JAX bring-up)::
     et = mh.compress(data)          # every process passes the same bytes
     out = mh.decompress(et)         # result valid on every process
 
-This module is exercised in CI via the virtual-device CPU mesh (a 1-process
-"pod"); real DCN runs need a pod slice, which this environment does not
-provide — the driver's ``dryrun_multichip`` validates the sharded program
-compiles and runs on N virtual devices.
+Tests exercise it with two gloo-coordinated CPU processes on one machine
+(tests/test_multihost.py) and with the virtual-device CPU mesh.
 """
 
 from __future__ import annotations
@@ -44,7 +42,8 @@ _initialized = False
 def init(**kwargs) -> None:
     """Initialize JAX distributed (idempotent). kwargs pass through to
     ``jax.distributed.initialize`` (coordinator_address, num_processes,
-    process_id) — all auto-detected on TPU pods.
+    process_id) — auto-detected only where a cluster environment says so
+    (e.g. SLURM); a plain multi-GPU host needs them given.
 
     Failure semantics: an explicit bring-up (any kwargs) propagates every
     error. With no kwargs, only the specific "no cluster environment found"
@@ -56,25 +55,13 @@ def init(**kwargs) -> None:
         return
     # NB: no jax.process_count()/jax.devices() before initialize — those
     # calls initialize the XLA backend and make distributed bring-up
-    # impossible. Prefer the public is_initialized() (jax >= 0.4.34); fall
-    # back to probing the private global_state (verified on jax 0.5-0.7),
-    # and treat any probe failure as "not initialized" so a jax refactor
-    # degrades to attempting initialize() rather than crashing here.
-    try:
-        is_init = getattr(jax.distributed, "is_initialized", None)
-        if is_init is not None:
-            already = bool(is_init())
-        else:
-            state = getattr(getattr(jax._src, "distributed", None), "global_state", None)
-            already = state is not None and getattr(state, "client", None) is not None
-    except Exception:
-        already = False
-    if already:
+    # impossible.
+    if jax.distributed.is_initialized():
         _initialized = True  # someone already brought distributed up
         return
-    # The string matches below pin failure semantics to jax's error wording
-    # (verified against jax 0.7.x in this image); a rewording would make the
-    # corresponding error propagate (fail loud) rather than be swallowed.
+    # The string matches below pin failure semantics to jax's error wording;
+    # a rewording would make the corresponding error propagate (fail loud)
+    # rather than be swallowed.
     try:
         jax.distributed.initialize(**kwargs)
     except ValueError as e:
@@ -83,7 +70,7 @@ def init(**kwargs) -> None:
         # auto-detect found no cluster environment: single-process run
     except RuntimeError as e:
         # tolerate ONLY "the XLA backend is already up in this process" (a
-        # single-process session that touched jax before init); a pod-side
+        # single-process session that touched jax before init); a cluster-side
         # failure like a coordinator handshake timeout must propagate
         msg = str(e)
         if kwargs or not (

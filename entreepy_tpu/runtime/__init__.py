@@ -213,7 +213,7 @@ def unpack_body(body: bytes, lut_flat: np.ndarray, lookup_bits: int, n_symbols: 
 
     Large bodies decode chunk-parallel across host threads via the
     speculative gap-array scheme (prefix-code self-synchronization; the host
-    twin of the TPU FSM decoder); it handles pathological chunks internally
+    twin of the device FSM decoder); it handles pathological chunks internally
     with serial re-walks and reports corrupt streams just like the serial
     walk does."""
     lib = _load()
@@ -367,7 +367,7 @@ def pack_body_sized(data, codes, lengths, block_bits: np.ndarray,
 
 def fsm8_decode_parallel(body, next_tbl, counts_tbl, syms_tbl, n_symbols: int):
     """Packed body -> (uint8[n_symbols], end_byte) via the threaded byte-FSM
-    chunk decoder (the host twin of the TPU gen-2 path), or None if no lib.
+    chunk decoder (the host twin of the device gen-2 path), or None if no lib.
     ``end_byte`` is where the n_symbols-th symbol completed (callers enforce
     end_byte == len(body)-1 — the exact-bit invariant). Raises on invalid
     transitions / truncated streams."""

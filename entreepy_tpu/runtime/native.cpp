@@ -1,6 +1,6 @@
 // entreepy_tpu native host runtime.
 //
-// The TPU owns the bulk compute path (ops/*.py); this library owns the
+// The device owns the bulk compute path (ops/*.py); this library owns the
 // host-side serial/bit-twiddling work around it, replacing the numpy
 // fallbacks at memory-bandwidth speed:
 //
@@ -10,7 +10,7 @@
 //   * et_unpack_body     — serial decode via the flat multi-level LUT
 //                          (reference decode.zig:143-203 probes a hash per
 //                          candidate length; here one table walk per symbol)
-//   * et_compact_symbols — gather the TPU FSM decoder's dense (packed,count)
+//   * et_compact_symbols — gather the device FSM decoder's dense (packed,count)
 //                          emission slots into the contiguous output stream
 //   * et_assemble_payloads / et_stitch_words — compact per-block emission
 //                          slots and merge per-block bitstreams at bit
@@ -125,7 +125,7 @@ long long et_compact_symbols(const uint32_t* packed, const int32_t* counts,
 }
 
 // Expand the byte-FSM decoder's state sequence into symbols (ops/decode8.py:
-// the TPU kernels emit one pre-transition state per compressed byte; the
+// the device decode emits one pre-transition state per compressed byte; the
 // symbols come from one table lookup per byte here). counts_tbl: int8[S*256]
 // (-1 = invalid transition), syms_tbl: uint8[S*256*8] left-justified.
 // `out` must have >= 8 bytes of slack past n_symbols (unconditional 8-byte
@@ -244,7 +244,7 @@ long long et_stitch_flat(const uint32_t* flat, const long long* offs,
 }  // extern "C" (scalar entry points)
 
 // ------------------------------------------------------------- parallel ---
-// The multithreaded host backend mirrors the TPU kernels' algorithms:
+// The multithreaded host backend mirrors the device kernels' algorithms:
 // independent blocks for encode, self-synchronizing chunks for decode
 // (SURVEY.md §5 "long-context" row; the reference names block-parallel
 // decoding as unimplemented future work, README.md:55).
@@ -806,7 +806,7 @@ long long et_fsm8_expand_chunks(const uint8_t* states, const uint8_t* body,
   return total;
 }
 
-// Byte-FSM chunk-parallel decode (gen 2) — the host twin of the TPU byte-FSM
+// Byte-FSM chunk-parallel decode (gen 2) — the host twin of the device byte-FSM
 // decoder (ops/decode8.py): one table transition per compressed byte instead
 // of a bit-LUT walk per symbol. Chunks decode speculatively in parallel from
 // a root entry guess, recording the pre-state of their first SYNCB bytes; a

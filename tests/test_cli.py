@@ -110,7 +110,7 @@ def test_cli_debug_output(tmp_path, tiny_text):
 
 def test_cli_help_text_reference_bytes(tmp_path):
     """The help text opens with a byte-exact copy of the reference's
-    (``main.zig:45-67``); TPU-only additions follow in a separate section."""
+    (``main.zig:45-67``); accelerator additions follow in a separate section."""
     from entreepy_tpu.cli import HELP_TEXT, REFERENCE_HELP_TEXT
 
     expected = (

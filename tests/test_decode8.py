@@ -368,36 +368,6 @@ def test_split_expand_matches_fused(data):
         assert np.array_equal(np.asarray(f), np.asarray(s))
 
 
-def test_split_expand_pallas_interpret_matches_scan():
-    """The Pallas split kernel (interpret mode) must equal the XLA scan
-    twin bit-for-bit on a tile-aligned shape."""
-    import jax.numpy as jnp
-
-    from entreepy_tpu.ops import decode8
-    from entreepy_tpu.ops.pallas_fsm8 import expand_pass_split_pallas8
-
-    data = (b"interleaved split-table expansion " * 120)[:4096]
-    _, split, (cols, states, ts, m, mt) = _expand_both_ways(data, chunk_bytes=8)
-    lanes, k = cols.shape
-    # pad lanes to the kernel's lane tile? use small shapes directly: the
-    # wrapper requires lanes % lt == 0 with lt = min(1024, lanes); any lanes
-    # works when lanes <= 1024 and k % kt == 0 with kt = min(128, k).
-    vals = expand_pass_split_pallas8(
-        cols.T, states.T.astype(jnp.int32), jnp.asarray(ts, jnp.bfloat16),
-        m, mt, interpret=True,
-    )
-    raw = vals[:, 0, :]
-    syms = vals[:, 1:, :].astype(jnp.uint8)
-    got = decode8._expand_mask(raw, syms, jnp.int32(lanes * k), m)
-    # n_valid=all here; compare against scan run with the same n_valid
-    raw2, syms2 = decode8._expand_scan_split(
-        cols, states, jnp.asarray(ts, jnp.bfloat16), m, mt
-    )
-    want = decode8._expand_mask(raw2, syms2, jnp.int32(lanes * k), m)
-    for g, w in zip(got, want):
-        assert np.array_equal(np.asarray(g), np.asarray(w))
-
-
 def test_fused_mode_env_knob(monkeypatch, macbeth):
     from entreepy_tpu.format.fsm8 import build_byte_fsm
     from entreepy_tpu.format import compress_host, parse_header
@@ -697,36 +667,38 @@ def test_onepass_corrupt_body_matches_host_behavior(midsummer):
 
 
 def test_tiled_routing_tile_incompatible_falls_back(monkeypatch, midsummer):
-    """Regression: under Pallas, a chunk size the fused kernel cannot tile
-    (e.g. 100: 100 % min(K_TILE_FUSED,100)=64 != 0 after the kt clamp) must
-    route AWAY from the tiled path instead of raising mid-pipeline, and the
-    router + tiled-function prechecks must agree (no recursion)."""
+    """No chunk size is tile-incompatible any more: the GPU kernels and the
+    XLA scans both take any lane count and chunk length, so on either side
+    of the kernel predicate a body past one tile routes to the tiled path
+    (an odd chunk size included). Only a two-pass ENTREEPY_EXPAND mode sends
+    the tiled entry point back to the untiled path (no recursion)."""
     import entreepy_tpu.ops.decode8 as d8
 
-    monkeypatch.setattr(d8, "_use_pallas", lambda: True)
-    assert not d8._tileable_onepass("onepass", 100)
-    assert d8._tileable_onepass("onepass", 512)
-    assert d8._tileable_onepass("onepass", 64)
-    assert not d8._tileable_onepass("split", 512)
-    monkeypatch.setattr(d8, "_use_pallas", lambda: False)
-    assert d8._tileable_onepass("onepass", 100)  # scan twin: no constraint
-
-    # Wiring: with pallas "on", the tiled entry point must delegate to the
-    # untiled path for an incompatible chunk size (sentinel, no kernels run).
-    monkeypatch.setattr(d8, "_use_pallas", lambda: True)
-    called = {}
-
-    def sentinel(body, table, n_symbols, *, chunk_bytes, fsm=None):
-        called["chunk"] = chunk_bytes
-        return np.zeros(n_symbols, np.uint8)
-
-    monkeypatch.setattr(d8, "decode_body_device_full", sentinel)
     et = compress_host(midsummer[:5000])
     hdr = parse_header(et)
-    out = d8.decode_body_device_tiled(
-        et[hdr.body_start :], hdr.table, hdr.body_len, chunk_bytes=100
-    )
-    assert called["chunk"] == 100 and out.size == hdr.body_len
+    body = et[hdr.body_start :]
+    called = []
+
+    def sentinel(body, table, n_symbols, *, chunk_bytes, fsm=None):
+        called.append(chunk_bytes)
+        return np.zeros(n_symbols, np.uint8)
+
+    real_full = d8.decode_body_device_full
+    monkeypatch.setattr(d8, "TILE_LANES", 4)
+    monkeypatch.setattr(d8, "decode_body_device_tiled", sentinel)
+    for gpu in (True, False):
+        monkeypatch.setattr(d8, "use_kernels", lambda g=gpu: g)
+        out = real_full(body, hdr.table, hdr.body_len, chunk_bytes=100)
+        assert out.size == hdr.body_len
+    assert called == [100, 100]
+
+    # Wiring: a forced two-pass mode delegates to the untiled path.
+    monkeypatch.undo()
+    monkeypatch.setenv("ENTREEPY_EXPAND", "split")
+    monkeypatch.setattr(d8, "decode_body_device_full", sentinel)
+    out = d8.decode_body_device_tiled(body, hdr.table, hdr.body_len,
+                                      chunk_bytes=100)
+    assert called[-1] == 100 and len(called) == 3 and out.size == hdr.body_len
 
 
 def test_tiled_respects_expand_mode_env(monkeypatch, midsummer):

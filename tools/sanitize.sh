@@ -28,7 +28,7 @@ run_one() {
   env "${env_extra[@]}" \
       LD_PRELOAD="$runtime_so" \
       ENTREEPY_NATIVE_LIB="$OUT/native_${kind}.so" \
-      ENTREEPY_NO_PALLAS=1 JAX_PLATFORMS=cpu \
+      JAX_PLATFORMS=cpu \
       python tools/_sanitize_driver.py
   echo "== ${kind}: clean =="
 }
